@@ -1,4 +1,4 @@
-"""TPU-native DR-CVaR safety-filtering engine for motion planning.
+"""DR-CVaR safety-filtering engine for motion planning (JAX, GPU).
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
 implementation of "Distributionally Robust CVaR-Based Safety Filtering for

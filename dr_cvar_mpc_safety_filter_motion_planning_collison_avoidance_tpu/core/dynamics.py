@@ -1,6 +1,6 @@
 """Discrete-time LTI dynamics (double / single integrator) and rollouts.
 
-TPU-native counterpart of reference core/dynamics.py:7-83.  Rollouts use
+Counterpart of reference core/dynamics.py:7-83.  Rollouts use
 `lax.scan` instead of Python loops so they jit to a single fused program
 and batch with `vmap`.
 """
@@ -45,12 +45,12 @@ def simulate_linear_system(x0, u_sequence, A, B, C):
     Reference core/dynamics.py:57-83 (serial Python loop) rebuilt as a
     `lax.scan`.  Shapes: x0 [n], u_sequence [T, m] -> ([T+1, n], [T+1, p]).
 
-    Runs at HIGHEST matmul precision: on TPU the default f32 matmul's
-    reduced-precision passes inject ~1e-3 relative error PER STEP into
-    the recursion, which compounds to ~4e-2 position error over a
-    horizon-length rollout (measured TPU-vs-CPU) -- far above the <1e-4
-    end-to-end control/distance contract.  The matrices are 4x4; the
-    MXU cost is irrelevant.
+    Runs at HIGHEST matmul precision: a default-precision f32 product
+    may run in TF32 on the GPU (~1e-3 relative error, about three
+    decimal digits) PER STEP of the recursion, which compounds over a
+    horizon-length rollout far above the <1e-4 end-to-end
+    control/distance contract.  The matrices are 4x4; the cost of full
+    precision is irrelevant.
     """
     with jax.default_matmul_precision("highest"):
         def step(x, u):
@@ -74,17 +74,9 @@ def rollout_positions(start_pos, velocity, n_steps: int, dt: float):
     return start_pos[None, :] + t * dt * velocity[None, :]
 
 
-def condensed_dynamics(A, B, horizon: int):
-    """Condensed prediction matrices for X = Phi x0 + Gamma U.
-
-    X = [x_1; ...; x_H] stacked states, U = [u_0; ...; u_{H-1}] stacked
-    inputs.  Phi: [H*n, n], Gamma: [H*n, H*m] block-lower-triangular with
-    Gamma[t, j] = A^{t-1-j} B for j < t.  Used to eliminate the dynamics
-    equality constraints of the MPC QP (reference core/mpc_filter.py:83-84)
-    so the QP is solved in input space only.
-
-    Computed in float64 on host (numpy) for accuracy, cast to A.dtype.
-    """
+def condensed_dynamics_f64(A, B, horizon: int):
+    """`condensed_dynamics` as float64 NumPy arrays (host-side builders
+    that form further products before rounding)."""
     A_np = np.asarray(A, dtype=np.float64)
     B_np = np.asarray(B, dtype=np.float64)
     n, m = B_np.shape
@@ -99,4 +91,19 @@ def condensed_dynamics(A, B, horizon: int):
     for t in range(1, H + 1):
         for j in range(t):
             Gamma[(t - 1) * n : t * n, j * m : (j + 1) * m] = powers[t - 1 - j] @ B_np
+    return Phi, Gamma
+
+
+def condensed_dynamics(A, B, horizon: int):
+    """Condensed prediction matrices for X = Phi x0 + Gamma U.
+
+    X = [x_1; ...; x_H] stacked states, U = [u_0; ...; u_{H-1}] stacked
+    inputs.  Phi: [H*n, n], Gamma: [H*n, H*m] block-lower-triangular with
+    Gamma[t, j] = A^{t-1-j} B for j < t.  Used to eliminate the dynamics
+    equality constraints of the MPC QP (reference core/mpc_filter.py:83-84)
+    so the QP is solved in input space only.
+
+    Computed in float64 on host (numpy) for accuracy, cast to A.dtype.
+    """
+    Phi, Gamma = condensed_dynamics_f64(A, B, horizon)
     return jnp.asarray(Phi, A.dtype), jnp.asarray(Gamma, A.dtype)

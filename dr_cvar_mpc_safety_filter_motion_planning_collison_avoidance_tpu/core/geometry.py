@@ -1,6 +1,6 @@
 """Geometric primitives for collision avoidance (vectorized, jit-safe).
 
-TPU-native counterpart of reference core/geometry.py:6-75.  All functions
+Counterpart of reference core/geometry.py:6-75.  All functions
 accept batched inputs (leading axes broadcast) and avoid data-dependent
 Python control flow so they trace cleanly under jit/vmap.
 """

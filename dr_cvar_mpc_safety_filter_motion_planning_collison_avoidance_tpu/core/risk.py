@@ -1,6 +1,6 @@
 """Empirical risk metrics: mean, VaR, CVaR.
 
-TPU-native counterpart of reference core/risk_metrics.py:35-82 plus the
+Counterpart of reference core/risk_metrics.py:35-82 plus the
 exact Rockafellar-Uryasev empirical CVaR used by the halfspace solvers.
 
 Two CVaR conventions live here on purpose:
@@ -15,7 +15,7 @@ Two CVaR conventions live here on purpose:
         min_tau  tau + 1/(alpha*N) * sum_i (x_i - tau)_+
     which is the quantity the reference's CVaR/DR-CVaR convex programs
     (core/risk_metrics.py:110-122, 199-211) optimize over.  This is the
-    one the TPU halfspace solvers use; it matches ECOS solutions to
+    one the halfspace solvers use; it matches ECOS solutions to
     solver tolerance.
 """
 

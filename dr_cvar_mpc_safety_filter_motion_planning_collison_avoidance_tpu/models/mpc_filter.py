@@ -1,6 +1,6 @@
 """MPC safety filter: condensed QP + batched interior-point solve.
 
-TPU-native counterpart of reference core/mpc_filter.py:9-218.  The
+Counterpart of reference core/mpc_filter.py:9-218.  The
 reference builds a sparse CVXPY problem over states x[H+1,4], inputs
 u[H,2] and per-(t,obstacle) slack variables, and solves it with OSQP.
 Here the dynamics equalities (core/mpc_filter.py:83-84) are eliminated by
@@ -36,7 +36,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..core.dynamics import condensed_dynamics, simulate_linear_system
+from ..core.dynamics import condensed_dynamics_f64, simulate_linear_system
+from ..ops.compensated import dot2
 from ..ops.qp_ipm_structured import solve_mpc_qp
 
 SLACK_LIN = 50.0   # linear slack penalty   (reference core/mpc_filter.py:143)
@@ -58,6 +59,7 @@ class MPCProblem:
     Phi: jax.Array      # [H*n, n]
     Gamma: jax.Array    # [H*n, H*m]
     Theta: jax.Array    # [H, p, H*m]  position rows of Gamma
+    GtPhi: jax.Array    # [H*m, n]     Gamma' Phi (the gradient's x0 part)
     P: jax.Array        # [nz, nz] constant QP Hessian (x2 convention)
     horizon: int
     n_states: int
@@ -83,31 +85,34 @@ def build_mpc_problem(A, B, C, q_weight: float, r_weight: float,
                       horizon: int, n_obstacles: int) -> MPCProblem:
     """Precompute condensed matrices and the constant Hessian.
 
-    Built at HIGHEST matmul precision: this runs once per problem shape
-    but its products (Gamma'Gamma, C Gamma) ARE the QP data -- on TPU
-    the default f32 matmul's reduced-precision passes would bake ~1e-3
-    errors into the Hessian itself.
+    Built once per problem shape in float64 on the host and rounded once
+    to A's dtype: its products (Gamma'Gamma, C Gamma) ARE the QP data,
+    and forming them in float32 leaves several ulps of error in the
+    Hessian, which the float32 solve passes on to the controls (about
+    half of the error budget against the 1e-4 oracle bound).
     """
     n = A.shape[0]
     m = B.shape[1]
     p = C.shape[0]
     H = horizon
-    Phi, Gamma = condensed_dynamics(A, B, H)
+    dtype = A.dtype
+    Phi, Gamma = condensed_dynamics_f64(A, B, H)
+    C64 = np.asarray(C, np.float64)
 
-    with jax.default_matmul_precision("highest"):
-        # Position rows: Theta[t] = C @ Gamma[t-block]  -> [H, p, H*m]
-        Cbar = jnp.kron(jnp.eye(H, dtype=A.dtype), C)
-        Theta = (Cbar @ Gamma).reshape(H, p, H * m)
+    # Position rows: Theta[t] = C @ Gamma[t-block]  -> [H, p, H*m]
+    Theta = (np.kron(np.eye(H), C64) @ Gamma).reshape(H, p, H * m)
+    n_u = H * m
+    n_s = H * n_obstacles
+    P = np.zeros((n_u + n_s, n_u + n_s))
+    P[:n_u, :n_u] = 2.0 * (q_weight * Gamma.T @ Gamma
+                           + r_weight * np.eye(n_u))
+    P[n_u:, n_u:] = 2.0 * SLACK_QUAD * np.eye(n_s)
 
-        n_u = H * m
-        n_s = H * n_obstacles
-        P_uu = 2.0 * (q_weight * Gamma.T @ Gamma
-                      + r_weight * jnp.eye(n_u, dtype=A.dtype))
-    P = jnp.zeros((n_u + n_s, n_u + n_s), A.dtype)
-    P = P.at[:n_u, :n_u].set(P_uu)
-    P = P.at[n_u:, n_u:].set(2.0 * SLACK_QUAD * jnp.eye(n_s, dtype=A.dtype))
+    def cast(x):
+        return jnp.asarray(x, dtype)
 
-    return MPCProblem(A, B, C, Phi, Gamma, Theta, P, H, n, m, p,
+    return MPCProblem(A, B, C, cast(Phi), cast(Gamma), cast(Theta),
+                      cast(Gamma.T @ Phi), cast(P), H, n, m, p,
                       n_obstacles, q_weight, r_weight)
 
 
@@ -142,8 +147,8 @@ def _filter_core(prob: MPCProblem, x0, x_ref, hs_h, hs_g,
     mean-metric solution to seed the cvar/dr_cvar solves.
 
     Runs at HIGHEST matmul precision: the condensed-data matmuls feed the
-    QP right-hand sides, and reduced-precision TPU f32 passes would inject
-    ~1e-3 errors into the problem data itself."""
+    QP right-hand sides, and TF32 products would inject ~1e-3 errors into
+    the problem data itself."""
     with jax.default_matmul_precision("highest"):
         return _filter_core_body(prob, x0, x_ref, hs_h, hs_g,
                                  u_min, u_max, p_min, p_max, max_iters, tol,
@@ -161,7 +166,11 @@ def _filter_core_body(prob, x0, x_ref, hs_h, hs_g,
 
     xr_flat = x_ref[1:H + 1].reshape(-1).astype(dtype)       # [H*n]
     e0 = prob.Phi @ x0.astype(dtype) - xr_flat               # Phi x0 - Xref
-    q_u = 2.0 * prob.q_weight * (prob.Gamma.T @ e0)
+    # q_u = 2q Gamma'(Phi x0 - Xref) in compensated arithmetic: its
+    # terms are ~100x the result, and a plain float32 product would
+    # carry ~1e-4 of rounding into the controls.
+    q_u = 2.0 * prob.q_weight * dot2(
+        [prob.GtPhi, prob.Gamma.T], [x0.astype(dtype), -xr_flat])
 
     theta0 = (prob.Phi @ x0.astype(dtype)).reshape(H, n)
     pos0 = theta0 @ prob.C.T                                 # [H, p]
@@ -219,13 +228,11 @@ def filter_core_batched(prob: MPCProblem, x0_b, x_ref_b, hs_h_b, hs_g_b,
     `chunk`-sized while_loops.
 
     Under one flat vmap the IPM's shared `lax.while_loop` runs until the
-    SLOWEST instance converges; E[max iterations] grows with batch, so
-    throughput fell 25% from batch 512 to 8192 (BENCH_r03
-    `mpc_qp_batch_sweep`, VERDICT r3 weak #4).  `lax.map` with
-    batch_size=chunk gives each chunk its own loop: early-converging
-    chunks retire instead of idling behind global stragglers, and a
-    chunk of 512 already fills the chip (512 lanes = 4 Pallas linalg
-    tiles).  Any batch size works (lax.map handles the remainder chunk
+    SLOWEST instance converges, and E[max iterations] grows with batch.
+    `lax.map` with batch_size=chunk gives each chunk its own loop:
+    early-converging chunks retire instead of idling behind global
+    stragglers.  The chunk of 512 has not been measured on the GPU
+    yet.  Any batch size works (lax.map handles the remainder chunk
     natively).  Returns (u [B,H,m], slack [B,H,n_obs], MPCQPSolution
     batch, obj [B]).
     """

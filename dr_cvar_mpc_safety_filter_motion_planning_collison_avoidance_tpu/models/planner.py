@@ -1,6 +1,6 @@
 """Reference trajectory planners.
 
-TPU-native counterpart of reference simulation/planner.py:8-197.
+Counterpart of reference simulation/planner.py:8-197.
 
 * `straight_line_trajectory` replicates the analytic constant-velocity
   line interpolation (reference simulation/planner.py:120-197), fully
@@ -94,8 +94,9 @@ def straight_line_trajectory(planner: Planner, start_pos, goal_pos,
     x_stat = jnp.zeros((H + 1, n), dtype).at[:, :2].set(start_pos[None, :])
     x_ref = jnp.where(degenerate, x_stat, x_ref)
 
-    # HIGHEST precision: the default TPU f32 matmul injects ~2e-2 error
-    # into the recovered inputs (measured); these are 4x4/4x2 products.
+    # HIGHEST precision: a TF32 product (the GPU's default f32 precision
+    # may use it) would inject ~1e-3 relative error into the recovered
+    # inputs; these are 4x4/4x2 products.
     with jax.default_matmul_precision("highest"):
         B_pinv = jnp.linalg.pinv(planner.B)
         u_ref = (x_ref[1:] - x_ref[:-1] @ planner.A.T) @ B_pinv.T

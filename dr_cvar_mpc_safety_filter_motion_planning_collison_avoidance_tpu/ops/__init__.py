@@ -7,5 +7,5 @@ from .qp_ipm import QPSolution, solve_qp, solve_qp_batched
 from . import qp_ipm_structured
 from .qp_ipm_structured import MPCQPSolution, solve_mpc_qp
 from . import pallas_kernels
-from .pallas_kernels import fused_drcvar_halfspace
+from .pallas_kernels import fused_metric_halfspaces
 from . import native_qp

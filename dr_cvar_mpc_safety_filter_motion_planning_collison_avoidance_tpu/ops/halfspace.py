@@ -54,8 +54,9 @@ from ..core.risk import cvar_rockafellar
 
 
 def _project(samples, h):
-    """s_i = h . xi_i at full f32 accumulation (TPU default f32 matmul
-    precision is reduced; halfspace offsets need the exact projections)."""
+    """s_i = h . xi_i at full f32 precision (a default-precision f32
+    product may run in TF32 on the GPU; halfspace offsets need the exact
+    projections)."""
     return jnp.einsum("...nd,...d->...n", samples, h,
                       precision=jax.lax.Precision.HIGHEST)
 
@@ -68,7 +69,7 @@ def _centered_diff(samples, ego_ref_pos):
     FIRST leaves the subtraction's cancellation to amplify the f32
     representation error of the mean (~5e-7 absolute), which the
     normalization in `compute_separating_vector` blows up to ~1e-3 in h
-    (measured TPU-vs-CPU).  Subtracting first makes every summand
+    (measured accelerator-vs-CPU).  Subtracting first makes every summand
     O(sample spread), so rounding is ~1e-8 and the returned difference
     is accurate (and backend-stable) to ~1e-8 regardless of degeneracy.
     Returns (centered_samples [..., N, 2], diff [..., 2]).
@@ -219,7 +220,7 @@ def kth_largest_radix_select(x, k: int, n_iters: int | None = None):
     partitioner (parallel/scaling.py census).
 
     Supports float32 (32-bit keys) and float64 (64-bit keys; the f64
-    path exists for the CPU oracle-parity suite -- TPUs run f32).
+    path exists for the CPU oracle-parity suite -- the GPU runs f32).
     """
     if x.dtype == jnp.float64:
         ui, nbits = jnp.uint64, 64

@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ QP solver (native/qp_solver.cpp).
 
-The hot path runs the batched JAX IPM on TPU (ops/qp_ipm.py); this
+The hot path runs the batched JAX IPM on the GPU (ops/qp_ipm.py); this
 module exposes the compiled host solver -- the engine's native
 counterpart of the reference's outsourced ECOS/OSQP C solvers
 (reference environment.yml:31-33) -- for:

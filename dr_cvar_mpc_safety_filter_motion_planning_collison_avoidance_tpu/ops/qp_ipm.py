@@ -10,7 +10,7 @@ Shapes (single instance; vmap for batches):
   P [n, n] (sym. positive definite), q [n], G [m, n], h [m].
 
 The per-iteration cost is one n x n Cholesky factorization plus a few
-G-matvecs; on TPU, batched instances turn these into large MXU matmuls.
+G-matvecs; batched instances turn these into batched matrix products.
 The problems this engine produces are always feasible (halfspace
 constraints are soft via slack variables), so no infeasibility
 certificate is needed -- non-convergence is reported through
@@ -75,9 +75,9 @@ def solve_qp(P, q, G, h, max_iters: int = 60, tol: float | None = None,
 
 
 def _solve_qp_hp(P, q, G, h, max_iters, tol, reg):
-    """IPM body, run at HIGHEST matmul precision: on TPU the default f32
-    matmul uses reduced-precision passes whose ~1e-3 error floor stalls
-    the Newton iteration; full-precision accumulation restores ~1e-6."""
+    """IPM body, run at HIGHEST matmul precision: a TF32 product (the
+    GPU's default f32 precision may use it) has a ~1e-3 error floor that
+    stalls the Newton iteration; full f32 restores ~1e-6."""
     with jax.default_matmul_precision("highest"):
         return _solve_qp_body(P, q, G, h, max_iters, tol, reg)
 

@@ -13,8 +13,7 @@ block is eliminated analytically: its contribution to the Newton system
 is DIAGONAL (m_ss = p_ss + d2 + d3), so a Schur complement reduces each
 iteration to ONE n_u x n_u Cholesky -- for the multi-obstacle MPC that
 is 60x60 instead of 150x150 (~15x fewer factorization FLOPs) and far
-less VMEM traffic, which is what batched throughput on the MXU is
-gated by.
+less memory traffic per iteration.
 
 Same Mehrotra predictor-corrector, centered start, best-iterate
 tracking, and merit-based convergence as the generic solver; verified
@@ -41,8 +40,20 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from .pallas_linalg import N_PAD as _LINALG_N_PAD
-from .pallas_linalg import chol_factor_b, chol_solve_b
+from .compensated import dot2
+
+
+def _factor(S):
+    """Lower Cholesky factor.  Under `vmap` XLA batches it (cuSOLVER on
+    the GPU); the named scope lets a profiler trace attribute its time."""
+    with jax.named_scope("ipm_factor"):
+        return jax.lax.linalg.cholesky(S)
+
+
+def _solve(L, r):
+    """Solve L L' x = r (both triangular solves), traced as `ipm_solve`."""
+    with jax.named_scope("ipm_solve"):
+        return jax.scipy.linalg.cho_solve((L, True), r)
 
 
 class MPCQPSolution(NamedTuple):
@@ -68,13 +79,11 @@ def _pos_step(v, dv, frac):
 
 
 @functools.partial(jax.jit, static_argnames=("max_iters", "polish",
-                                             "linsolve",
-                                             "ipm_precision"))
+                                             "linsolve"))
 def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
                  max_iters: int = 60, tol: float | None = None,
                  reg: float = 0.0, polish: bool = True,
-                 linsolve: str = "chol", ipm_precision: str = "highest",
-                 warm=None, box_theta=None):
+                 linsolve: str = "chol", warm=None, box_theta=None):
     """Solve the slack-structured QP above.
 
     Shapes: P_uu [n,n], q_u [n], G_u [m1,n], h1 [m1], A [m2,n], b [m2],
@@ -110,7 +119,7 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
         batched single-RHS triangular solve is a 60-step sequential
         chain of tiny ops.
       * "inv": cho_factor once, then S^-1 = cho_solve(chol, I) -- ONE
-        multi-RHS triangular solve (n RHS at once, MXU-shaped) -- and
+        multi-RHS triangular solve (n RHS at once, matmul-shaped) -- and
         both Newton solves become plain matvecs.  Same factorization
         accuracy; the extra inverse-apply rounding is absorbed by the
         IPM's best-iterate tracking + the active-set polish.
@@ -120,14 +129,14 @@ def solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
         reg = 1e-10 if dtype == jnp.float64 else 1e-7
     if tol is None:
         tol = 1e-9 if dtype == jnp.float64 else 3e-5
-    # `ipm_precision` applies ONLY to the iteration loop's matmuls
-    # (Newton assembly/solves, whose errors the best-iterate tracking,
-    # active-set polish and KKT refinement absorb); the polish and the
-    # final residual evaluations always run at HIGHEST -- they are what
-    # the <1e-4 on-chip control-deviation contract rests on.
     return _solve_body(P_uu, q_u, G_u, h1, A, b, p_ss, q_s,
-                       max_iters, tol, reg, polish, linsolve,
-                       ipm_precision, warm, box_theta)
+                       max_iters, tol, reg, polish, linsolve, warm,
+                       box_theta)
+
+
+# Most equality-constrained solves in one polish: the first on the
+# active set read off the IPM iterate, then corrections (see _polish).
+_POLISH_ROUNDS = 6
 
 
 def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
@@ -135,8 +144,7 @@ def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
     """Active-set Newton polish of a near-optimal IPM iterate.
 
     The soft-slack structure admits an analytic elimination of every
-    slack case once the active set is known (classified by l > w at the
-    IPM's merit floor):
+    slack case once the active set is known:
 
       * soft row j ACTIVE in `A u - s <= b` but s_j > 0 ("penalized"):
         s-stationarity gives nu2_j = p_ss s_j + q_s with
@@ -146,17 +154,15 @@ def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
         free multiplier.
       * s_j = 0 only (row slack): contributes nothing to u.
 
-    What remains is an equality-constrained QP in u: KKT solved by a
-    Schur complement over the ACTIVE rows of [G_u; A].  At a
-    nondegenerate optimum at most n (=60) constraints can be active, so
-    instead of factorizing the dense (m1+2m2)-row Schur matrix (330x330
-    at the multi-obstacle shape -- measured 83% of total solve time
-    under vmap on TPU), the <=64 highest-multiplier active rows are
-    GATHERED and the Schur system is 64x64: ~170x fewer factorization
-    FLOPs and 5x less sequential triangular-solve depth.  If more than
-    64 rows are truly active (degenerate), the dropped rows make the
-    polished iterate violate its KKT system, its merit comes out higher,
-    and the merit gate below rejects it -- graceful, never wrong.
+    What remains is an equality-constrained QP in u (`_polish_solve`).
+    The first active set is classified by l > w at the IPM's merit
+    floor.  In float32 that floor can leave a few rows ambiguous (l/w
+    within a factor of ~2), so the set is then corrected from each
+    solve, primal-dual active-set style, until it stops changing (at
+    most `_POLISH_ROUNDS` solves): an active row whose multiplier has
+    the wrong sign leaves, an inactive row whose constraint is violated
+    enters, and a soft row moves between the equality and penalized
+    cases by its multiplier and residual.
 
     The polished iterate replaces the IPM one only when its merit is
     lower.
@@ -164,82 +170,40 @@ def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
     dtype = P_uu.dtype
     n = P_uu.shape[0]
     m1 = G_u.shape[0]
-    eye = jnp.eye(n, dtype=dtype)
-
-    a1 = l1 > w1           # active box rows
-    a2 = l2 > w2           # active soft rows (A u - s = b)
-    a3 = l3 > w3           # active slack-nonnegativity rows (s = 0)
-    m_pen = a2 & ~a3       # soft row active with s > 0 -> exact penalty
-    m_eq = a2 & a3         # soft row active with s = 0 -> equality on u
-
-    pen = jnp.where(m_pen, p_ss, 0.0)
-    K = P_uu + (A.T * pen) @ A + reg * eye
-    q_t = q_u + A.T @ jnp.where(m_pen, q_s - p_ss * b, 0.0)
-
-    E = jnp.concatenate([G_u, A], axis=0)                  # [m_rows, n]
-    e = jnp.concatenate([h1, b])
-    act = jnp.concatenate([a1, m_eq])                      # bool [m_rows]
     l_all = jnp.concatenate([l1, l2])
-    m_rows = E.shape[0]
-    # At a nondegenerate optimum at most n rows are active, so n + 4
-    # selections suffice.  When that fits the lane-batched Pallas
-    # Cholesky tile (N_PAD = 64) the Schur solve stays on the fast path;
-    # for n > 60 keep the full n + 4 selection (correct polish) even
-    # though the Schur system then falls off the Pallas path -- capping
-    # there would silently under-select and degrade polish quality
-    # (ADVICE r4).  The merit gate still rejects any degenerate
-    # over-truncation.
-    k_sel = min(n + 4, m_rows)
 
-    # Gather the active rows (highest multipliers first; inactive rows
-    # that pad out the selection get va=0 and decouple as identity
-    # rows).  The gather/scatter are expressed as one-hot MATMULS, not
-    # jnp.take: under vmap a per-lane 64-row dynamic gather lowers to
-    # slow serial dynamic-slices on TPU, while [k_sel, m_rows] one-hot
-    # products run on the MXU.
-    score = jnp.where(act, 1.0 + l_all, 0.0)
-    _, idx = jax.lax.top_k(score, k_sel)
-    sel = (idx[:, None] ==
-           jnp.arange(m_rows)[None, :]).astype(dtype)      # [k_sel, m_rows]
-    va = sel @ act.astype(dtype)                           # [k_sel]
-    Eg = sel @ E                                           # [k_sel, n]
-    eg = sel @ e
+    def corrected(sets, u_p, nu):
+        a1, m_pen, m_eq = sets
+        r2 = A @ u_p - b
+        nu2 = nu[m1:]
+        return (jnp.where(a1, nu[:m1] > 0, G_u @ u_p - h1 > 0),
+                jnp.where(m_pen, r2 > 0, m_eq & (nu2 > q_s)),
+                jnp.where(m_pen, r2 <= 0,
+                          jnp.where(m_eq, (nu2 >= 0) & (nu2 <= q_s),
+                                    r2 > 0)))
 
-    LK = chol_factor_b(K)
-    # One stacked multi-RHS solve instead of separate KiEg / Kiq
-    # triangular solves (the sequential depth of batched triangular
-    # solves, not their FLOPs, is what costs on TPU).
-    KiEq = chol_solve_b(
-        LK, jnp.concatenate([Eg.T, q_t[:, None]], axis=1))
-    KiEg, Kiq = KiEq[:, :k_sel], KiEq[:, k_sel]
-    Mg = (va[:, None] * (Eg @ KiEg) * va[None, :]
-          + jnp.diag(1.0 - va)
-          + reg * jnp.eye(k_sel, dtype=dtype))
-    rhs = va * (-(Eg @ Kiq) - eg)
-    LM = chol_factor_b(Mg)
-    nug = va * chol_solve_b(LM, rhs)
-    # u = -K^-1 (q_t + Eg' nu) = -(Kiq + KiEg nu): reuses the solved
-    # blocks, no further triangular solve.
-    u_p = -(Kiq + KiEg @ nug)
+    def cond(state):
+        k, _, _, _, _, changed = state
+        return (k < _POLISH_ROUNDS) & changed
 
-    # KKT iterative refinement on BOTH u and nu (f32 Cholesky + the reg
-    # shift leave ~1e-5-relative residual in the first solve; two passes
-    # against the equality-constrained system
-    #     K u + q_t + E_a' nu_a = 0,   E_a u = e_a
-    # pull the on-chip control error to the f32 residual-evaluation
-    # floor, ~1e-6 -- needed for the <1e-4 on-TPU oracle bound).
-    for _ in range(2):
-        r1 = K @ u_p + q_t + Eg.T @ nug
-        r2 = va * (Eg @ u_p - eg)
-        t = chol_solve_b(LK, r1)
-        dnu = va * chol_solve_b(LM, r2 - va * (Eg @ t))
-        du = -(t + KiEg @ dnu)
-        u_p = u_p + du
-        nug = nug + dnu
+    def body(state):
+        k, sets, _, _, _, _ = state
+        u_p, nu = _polish_solve(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
+                                *sets, l_all)
+        nxt = corrected(sets, u_p, nu)
+        changed = jnp.any(jnp.concatenate(
+            [x != y for x, y in zip(nxt, sets)]))
+        return k + 1, nxt, sets, u_p, nu, changed
 
-    # Scatter the gathered multipliers back to full row indexing
-    # (inactive rows carry nu = 0 by definition).
-    nu = sel.T @ (nug * va)
+    # Active box rows, soft rows active with s > 0 (exact penalty) and
+    # soft rows active with s = 0 (equality on u).
+    a2, a3 = l2 > w2, l3 > w3
+    sets = (l1 > w1, a2 & ~a3, a2 & a3)
+    init = (jnp.asarray(0, jnp.int32), sets, sets,
+            jnp.zeros((n,), dtype), jnp.zeros_like(l_all),
+            jnp.asarray(True))
+    _, _, (a1, m_pen, m_eq), u_p, nu, _ = jax.lax.while_loop(
+        cond, body, init)
 
     Au = A @ u_p
     s_p = jnp.maximum(jnp.where(m_pen, Au - b, 0.0), 0.0)
@@ -255,14 +219,105 @@ def _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
     # Zero the complementarity products on the active rows (they are
     # equalities now; residual w is solve noise, not a gap).
     w1_p = jnp.where(a1, tiny, w1_p)
-    w2_p = jnp.where(a2, tiny, w2_p)
-    w3_p = jnp.where(a3, tiny, w3_p)
+    w2_p = jnp.where(m_pen | m_eq, tiny, w2_p)
+    w3_p = jnp.where(~m_pen, tiny, w3_p)
     return u_p, s_p, l1_p, l2_p, l3_p, w1_p, w2_p, w3_p
 
 
+def _polish_solve(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, reg,
+                  a1, m_pen, m_eq, l_all):
+    """u and the row multipliers nu [m1 + m2] of the equality-constrained
+    QP that active set (a1, m_pen, m_eq) leaves (see `_polish`).
+
+    KKT solved by a Schur complement over the ACTIVE rows of [G_u; A].
+    At a nondegenerate optimum at most n (=60) constraints can be
+    active, so instead of factorizing the dense (m1+2m2)-row Schur matrix
+    (330x330 at the multi-obstacle shape), the <=64 highest-multiplier
+    active rows are GATHERED and the Schur system is 64x64: ~170x fewer
+    factorization FLOPs and 5x less sequential triangular-solve depth.
+    If more than 64 rows are truly active (degenerate), the dropped rows
+    make the polished iterate violate its KKT system, its merit comes out
+    higher, and the merit gate rejects it -- graceful, never wrong.
+    """
+    dtype = P_uu.dtype
+    n = P_uu.shape[0]
+    eye = jnp.eye(n, dtype=dtype)
+
+    pen = jnp.where(m_pen, p_ss, 0.0)
+    K = P_uu + (A.T * pen) @ A + reg * eye
+    q_t = q_u + A.T @ jnp.where(m_pen, q_s - p_ss * b, 0.0)
+
+    E = jnp.concatenate([G_u, A], axis=0)                  # [m_rows, n]
+    e = jnp.concatenate([h1, b])
+    act = jnp.concatenate([a1, m_eq])                      # bool [m_rows]
+    m_rows = E.shape[0]
+    # At a nondegenerate optimum at most n rows are active, so n + 4
+    # selections suffice; capping lower would silently under-select and
+    # degrade polish quality.  The merit gate still rejects any
+    # degenerate over-truncation.
+    k_sel = min(n + 4, m_rows)
+
+    # Gather the active rows (highest multipliers first; inactive rows
+    # that pad out the selection get va=0 and decouple as identity
+    # rows).  The gather/scatter are expressed as one-hot matmuls
+    # ([k_sel, m_rows] products, batched dense work under vmap) rather
+    # than per-instance dynamic gathers.
+    score = jnp.where(act, 1.0 + l_all, 0.0)
+    _, idx = jax.lax.top_k(score, k_sel)
+    sel = (idx[:, None] ==
+           jnp.arange(m_rows)[None, :]).astype(dtype)      # [k_sel, m_rows]
+    va = sel @ act.astype(dtype)                           # [k_sel]
+    Eg = sel @ E                                           # [k_sel, n]
+    eg = sel @ e
+
+    LK = _factor(K)
+    # One stacked multi-RHS solve instead of separate KiEg / Kiq
+    # triangular solves: batched triangular solves cost by their
+    # sequential depth more than by their FLOPs.
+    KiEq = _solve(
+        LK, jnp.concatenate([Eg.T, q_t[:, None]], axis=1))
+    KiEg, Kiq = KiEq[:, :k_sel], KiEq[:, k_sel]
+    Mg = (va[:, None] * (Eg @ KiEg) * va[None, :]
+          + jnp.diag(1.0 - va)
+          + reg * jnp.eye(k_sel, dtype=dtype))
+    rhs = va * (-(Eg @ Kiq) - eg)
+    LM = _factor(Mg)
+    nug = va * _solve(LM, rhs)
+    # u = -K^-1 (q_t + Eg' nu) = -(Kiq + KiEg nu): reuses the solved
+    # blocks, no further triangular solve.
+    u_p = -(Kiq + KiEg @ nug)
+
+    # KKT iterative refinement on BOTH u and nu (f32 Cholesky + the reg
+    # shift leave ~1e-5-relative residual in the first solve), against
+    # the equality-constrained system
+    #     K u + q_t + E_a' nu_a = 0,   E_a u = e_a.
+    # The first pass takes a plain float32 residual; the second, in
+    # compensated arithmetic (`dot2`, K applied term by term), brings u
+    # to the float32 solution of the QP -- a plain residual stalls at
+    # ~1e-4 in u, the size of the oracle bound.
+    for accurate in (False, True):
+        if accurate:
+            y = dot2([A], [u_p], add=[-b])                 # A u - b
+            z = jnp.where(m_pen, p_ss * y + q_s, 0.0)
+            r1 = dot2([P_uu, A.T, Eg.T], [u_p, z, nug],
+                      add=[q_u, reg * u_p])
+            r2 = va * dot2([Eg], [u_p], add=[-eg])
+        else:
+            r1 = K @ u_p + q_t + Eg.T @ nug
+            r2 = va * (Eg @ u_p - eg)
+        t = _solve(LK, r1)
+        dnu = va * _solve(LM, r2 - va * (Eg @ t))
+        du = -(t + KiEg @ dnu)
+        u_p = u_p + du
+        nug = nug + dnu
+
+    # Scatter the gathered multipliers back to full row indexing
+    # (inactive rows carry nu = 0 by definition).
+    return u_p, sel.T @ (nug * va)
+
+
 def _solve_body(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol, reg,
-                polish=False, linsolve="chol", ipm_precision="highest",
-                warm=None, box_theta=None):
+                polish=False, linsolve="chol", warm=None, box_theta=None):
     dtype = P_uu.dtype
     n = P_uu.shape[0]
     m1 = G_u.shape[0]
@@ -385,12 +440,8 @@ def _solve_body(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol, reg,
         m_ss = p_ss + d2 + d3
         d2_eff = d2 - d2 * d2 / m_ss
         S = (P_uu + gu_quad(d1) + (A.T * d2_eff) @ A + reg * eye)
-        # chol_factor_b / chol_solve_b: scipy semantics per instance; on
-        # TPU under vmap they dispatch to the lane-batched Pallas
-        # kernels (ops/pallas_linalg.py) -- the batched XLA
-        # Cholesky/triangular-solve chain was ~52% of MPC solve time.
-        Lchol = chol_factor_b(S)
-        S_inv = chol_solve_b(Lchol, eye) if linsolve == "inv" else None
+        Lchol = _factor(S)
+        S_inv = _solve(Lchol, eye) if linsolve == "inv" else None
 
         def newton(rc1, rc2, rc3):
             t_s = (-r_ds + d2 * r_p2 - rc2 / w2 + d3 * r_p3 - rc3 / w3)
@@ -398,7 +449,7 @@ def _solve_body(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol, reg,
                    - A.T @ (d2 * r_p2 - rc2 / w2)
                    + A.T @ (d2 * t_s / m_ss))
             du = (S_inv @ rhs if linsolve == "inv"
-                  else chol_solve_b(Lchol, rhs))
+                  else _solve(Lchol, rhs))
             ds = (t_s + d2 * (A @ du)) / m_ss
             dl1 = d1 * (gu_mv(du) + r_p1) - rc1 / w1
             dl2 = d2 * (A @ du - ds + r_p2) - rc2 / w2
@@ -452,7 +503,9 @@ def _solve_body(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol, reg,
     init = (u, s, w1, w2, w3, l1, l2, l3,
             (big, u, s, (l1, l2, l3), (w1, w2, w3)), jnp.asarray(False),
             jnp.asarray(0, jnp.int32), jnp.asarray(0, jnp.int32))
-    with jax.default_matmul_precision(ipm_precision):
+    # Every product in the solver runs at HIGHEST: a default-precision
+    # float32 product may run in TF32 on the GPU.
+    with jax.default_matmul_precision("highest"):
         out = jax.lax.while_loop(cond, body, init)
     u, s, w1, w2, w3, l1, l2, l3, best, done, stall, iters = out
 
@@ -488,7 +541,7 @@ def _solve_body(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, max_iters, tol, reg,
 def _finalize(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, m_total, m1, tol,
               dtype, u, s, l1, l2, l3, best_merit, iters):
     """Reported residuals/objective at HIGHEST precision (they are the
-    caller-visible accuracy evidence, independent of `ipm_precision`)."""
+    caller-visible accuracy evidence)."""
     obj = (0.5 * u @ (P_uu @ u) + q_u @ u
            + 0.5 * jnp.dot(p_ss * s, s) + q_s @ s)
     # Complementarity gap from TRUE slacks (h - Gz), not the IPM's w

@@ -1,17 +1,17 @@
-"""Multi-host execution: jax.distributed init + DCN-aware mesh layout.
+"""Multi-host execution: jax.distributed init + host-aware mesh layout.
 
 The reference is a single process (SURVEY.md section 2 parallelism
-inventory: none).  At scale, this engine's sweeps span TPU pods: each
-host owns one slice of ICI-connected chips, and hosts talk over DCN.
-The mesh layout rule (the "How to Scale Your Model" recipe):
+inventory: none).  At scale, this engine's sweeps span several hosts:
+the GPUs of one host are joined all to all by NVLink, and hosts talk
+over the network.  The mesh layout rule:
 
   * `data` axis (independent problem instances -- MC runs, sweep cells,
     scenario fleets) lies over HOSTS.  Instances are embarrassingly
-    parallel, so the only DCN traffic is the final metric gather.
+    parallel, so the only cross-host traffic is the final metric gather.
   * `samples` axis (the N Monte-Carlo samples inside one DR-CVaR
     program) lies over each host's LOCAL devices.  Its psum-based order
     statistics (parallel/sample_parallel.py) are latency-sensitive and
-    must ride ICI, never DCN.
+    must stay on NVLink, never cross the network.
 
 Single-process (virtual-device or single-chip) runs use the same layout
 helpers with `n_hosts` emulating process boundaries, so multi-host
@@ -46,10 +46,11 @@ def initialize_distributed(coordinator_address: str | None = None,
                            local_device_ids=None) -> bool:
     """Initialize the JAX distributed runtime for multi-host execution.
 
-    Thin, idempotent wrapper over `jax.distributed.initialize`: in TPU
-    pod environments all arguments auto-detect from the environment; on
-    CPU/GPU fake clusters pass them explicitly.  Returns True when a
-    multi-process runtime is (now) active, False for single-process.
+    Thin, idempotent wrapper over `jax.distributed.initialize`.  Pass
+    the coordinator address, process count and process id explicitly
+    unless a cluster environment the runtime recognises provides them.
+    Returns True when a multi-process runtime is (now) active, False for
+    single-process.
 
     Must be called before any other JAX API touches the backend.
     """
@@ -74,12 +75,13 @@ def initialize_distributed(coordinator_address: str | None = None,
 def make_multihost_mesh(n_hosts: int | None = None,
                         devices_per_host: int | None = None,
                         devices=None) -> Mesh:
-    """Build the DCN-aware ('data' over hosts, 'samples' over ICI) mesh.
+    """Build the host-aware mesh: 'data' over hosts, 'samples' over the
+    devices inside one host.
 
     In a real multi-process runtime (jax.process_count() > 1) the host
     grouping comes from each device's `process_index`, so rows of the
     mesh ARE hosts and the `samples` axis stays inside one host's
-    ICI-connected slice.  In a single process, `n_hosts` emulates the
+    NVLink-connected devices.  In a single process, `n_hosts` emulates the
     layout by slicing the flat device list into contiguous host-sized
     groups (virtual CPU devices / dry runs).
 
@@ -97,7 +99,7 @@ def make_multihost_mesh(n_hosts: int | None = None,
             raise ValueError(
                 f"n_hosts={n_hosts} but the runtime has {n_real_hosts} "
                 "processes; the data axis must match host boundaries so "
-                "sample-axis collectives never cross DCN.")
+                "sample-axis collectives never cross hosts.")
     elif n_hosts is None:
         n_hosts = 1
     if devices_per_host is None:
@@ -115,7 +117,7 @@ def make_multihost_mesh(n_hosts: int | None = None,
     grid = np.asarray(devices[:used]).reshape(n_hosts, devices_per_host)
     if jax.process_count() > 1:
         # The module's contract: every mesh row lives inside ONE process
-        # so 'samples'-axis collectives ride ICI, never DCN.
+        # so 'samples'-axis collectives never leave the host.
         for row in grid:
             procs = {d.process_index for d in row}
             if len(procs) != 1:

@@ -1,16 +1,18 @@
 """Device-mesh helpers for multi-chip execution.
 
 The reference is single-process/single-thread (SURVEY.md section 2
-parallelism inventory: none).  The TPU engine's parallel structure:
+parallelism inventory: none).  The engine's parallel structure:
 
   * `data` axis: independent problem instances -- (scenario x MC-run x
     timing-sweep cell x timestep x obstacle) batches shard over chips via
     `NamedSharding`; XLA inserts any needed collectives.
   * `samples` axis: the N Monte-Carlo samples inside one DR-CVaR program
     shard over chips; the solver's reductions become `psum`s
-    (parallel/sample_parallel.py) riding ICI.
+    (parallel/sample_parallel.py).
 
-No NCCL/MPI: collectives are XLA ops over `jax.sharding.Mesh`.
+Collectives are XLA ops over `jax.sharding.Mesh` (NCCL on the GPU).  The
+cards of one host are joined all to all by NVLink, so devices are taken
+in `jax.devices()` order with no topology-shaped layout.
 """
 
 from __future__ import annotations

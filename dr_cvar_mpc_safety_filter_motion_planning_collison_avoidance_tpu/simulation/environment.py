@@ -1,6 +1,6 @@
 """Safety-filtering environment facade.
 
-TPU-native counterpart of reference simulation/environment.py:8-140.
+Counterpart of reference simulation/environment.py:8-140.
 The reference's double loop over timesteps and obstacles (HOT LOOPS A/B,
 environment.py:82-104 -> halfspaces.py:225-246; ~60-180 serial ECOS solves
 per scenario) collapses here into ONE jitted call that evaluates every
@@ -68,18 +68,18 @@ class Environment:
         return self.C.shape[0]
 
 
-def _use_pallas_auto(env: Environment) -> bool:
-    """Production TPU path: the fused Pallas kernel (one sample read for
-    all three metrics) when running float32 on a TPU backend; the
-    batched XLA closed form otherwise (CPU, float64).  Respects a
-    `jax.default_device(...)` override (e.g. running the CPU reference
-    path from a TPU-backed process).
+def _use_kernel(env: Environment, n_samples: int) -> bool:
+    """Production GPU path: the fused Pallas kernel (one sample read for
+    all three metrics) when running float32 on a GPU backend with rows
+    no wider than `KERNEL_MAX_N`; the batched XLA closed form otherwise
+    (CPU, float64, wider rows).  Respects a `jax.default_device(...)`
+    override (e.g. the CPU cross-check run from a GPU process).
 
-    Also gated OFF under `jax_enable_x64`: with x64 enabled the kernel's
-    32-bit bit-pattern arithmetic hits a Mosaic lowering recursion
-    (VERDICT r2 weak #2) -- a process mixing f64 parity checks with TPU
-    runs must fall back to the XLA closed form instead of crashing
-    (regression-tested in tests/test_tpu.py)."""
+    Also off under `jax_enable_x64`: Python constants in the kernel body
+    would widen to 64 bits, and a process mixing float64 parity checks
+    with GPU runs takes the XLA closed form instead."""
+    from ..ops.pallas_kernels import KERNEL_MAX_N
+
     if jax.config.jax_enable_x64:
         return False
     default_dev = jax.config.jax_default_device
@@ -87,39 +87,33 @@ def _use_pallas_auto(env: Environment) -> bool:
     platform = (getattr(default_dev, "platform", default_dev)
                 if default_dev is not None
                 else jax.default_backend())
-    return env.dtype == jnp.float32 and platform == "tpu"
+    return (env.dtype == jnp.float32 and platform == "gpu"
+            and n_samples <= KERNEL_MAX_N)
 
 
-@functools.partial(jax.jit, static_argnames=("env", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("env", "use_kernel"))
 def compute_safe_halfspaces_for_trajectory(env: Environment,
                                            obstacle_samples, x_ref,
-                                           use_pallas: bool | None = None
+                                           use_kernel: bool | None = None
                                            ) -> SafeHalfspaces:
     """Halfspaces for every (t, obstacle, metric) in one fused call.
 
     Reference simulation/environment.py:60-106: for t in range(n_steps),
     slice per-obstacle samples [:, t, :], take ego ref position C@x_ref[t],
     and build mean/CVaR/DR-CVaR halfspaces.  Here the loop axes become
-    array axes, and on TPU the three metrics are computed by ONE fused
-    Pallas kernel pass over the samples (ops/pallas_kernels.py).
+    array axes, and on the GPU the three metrics are computed by ONE
+    fused Pallas kernel pass over the samples (ops/pallas_kernels.py).
 
     Args:
       obstacle_samples: [n_obs, n_samples, T+1, 2] stacked sample
         trajectories (T+1 >= n_steps).
       x_ref: [H+1, n_states] ego reference trajectory.
-      use_pallas: force the kernel path (True), the XLA path (False) or
-        pick by platform/dtype (None).
+      use_kernel: force the kernel path (True), the XLA path (False) or
+        pick by platform, dtype and N (None).
     Returns:
       SafeHalfspaces with batch shape [n_steps, n_obs], where
       n_steps = min(len(x_ref), horizon) (environment.py:71).
     """
-    if use_pallas is None:
-        from ..ops.pallas_kernels import MAX_N_SAMPLES
-        # Kernel's packed-count fields carry counts <= 32767 (widths
-        # scale with N since round 5); beyond that the XLA closed form
-        # takes over automatically.
-        use_pallas = (_use_pallas_auto(env)
-                      and obstacle_samples.shape[1] <= MAX_N_SAMPLES)
     # Clamp to the obstacle data's length too: with a per-scenario
     # sim_time shorter than horizon*dt (paper presets, 3-5 s vs 6 s)
     # there are simply no obstacle samples beyond the simulation end --
@@ -129,48 +123,31 @@ def compute_safe_halfspaces_for_trajectory(env: Environment,
     # missing rows as inactive constraints.
     n_steps = min(x_ref.shape[0], env.horizon, obstacle_samples.shape[2])
     n_obs, n_samples = obstacle_samples.shape[0], obstacle_samples.shape[1]
+    if use_kernel is None:
+        use_kernel = _use_kernel(env, n_samples)
     # [n_obs, N, n_steps, 2] -> [n_steps, n_obs, N, 2]
     samples_t = jnp.transpose(obstacle_samples[:, :, :n_steps, :],
                               (2, 0, 1, 3)).astype(env.dtype)
-    # HIGHEST precision: the default TPU f32 matmul would bf16-round the
-    # ego positions (~3e-2 error at O(10) coordinates) before they reach
-    # the halfspace solvers.
+    # HIGHEST precision: a default-precision f32 product may run in TF32
+    # on the GPU (~1e-3 relative), which would round the ego positions
+    # before they reach the halfspace solvers.
     ego_pos = jnp.einsum("tn,pn->tp", x_ref[:n_steps].astype(env.dtype),
                          env.C, precision=jax.lax.Precision.HIGHEST)
 
-    if use_pallas:
-        from ..ops.pallas_kernels import (_pick_tile_b, _round_up,
-                                          fused_metric_halfspaces_planes)
-        # Feed the kernel SoA coordinate PLANES directly: building a
-        # [B, N, 2] intermediate and re-splitting it inside the AoS
-        # wrapper costs a full extra HBM round-trip (measured 4x the
-        # kernel itself at bench scale -- see ops/pallas_kernels
-        # _split_planes).  Slicing each coordinate out of samples_t
-        # lets XLA fuse transpose+slice+pad into one read per plane.
+    if use_kernel:
+        from ..ops.pallas_kernels import fused_metric_halfspaces
         B = n_steps * n_obs
-        n_pad = _round_up(n_samples, 128)
-        tile_b = _pick_tile_b(B, None, n_pad)
-        b_pad = _round_up(B, tile_b)
-        sx = jnp.zeros((b_pad, n_pad), jnp.float32).at[
-            :B, :n_samples].set(
-                samples_t[..., 0].reshape(B, n_samples).astype(jnp.float32))
-        sy = jnp.zeros((b_pad, n_pad), jnp.float32).at[
-            :B, :n_samples].set(
-                samples_t[..., 1].reshape(B, n_samples).astype(jnp.float32))
         ego_flat = jnp.broadcast_to(ego_pos[:, None, :],
-                                    (n_steps, n_obs, 2)).reshape(-1, 2)
-        ego_p = jnp.zeros((b_pad, 2), jnp.float32).at[:B].set(
-            ego_flat.astype(jnp.float32))
-        hm, gm, h, gc, gd = fused_metric_halfspaces_planes(
-            sx, sy, ego_p, n_samples, env.alpha, env.delta, env.epsilon,
-            env.robot_radius, env.obstacle_radius, tile_b=tile_b)
+                                    (n_steps, n_obs, 2)).reshape(B, 2)
+        hm, gm, h, gc, gd = fused_metric_halfspaces(
+            samples_t.reshape(B, n_samples, 2), ego_flat, env.alpha,
+            env.delta, env.epsilon, env.robot_radius, env.obstacle_radius)
         shape2 = (n_steps, n_obs, 2)
         shape1 = (n_steps, n_obs)
         return SafeHalfspaces(
-            mean=Halfspace(hm[:B].reshape(shape2), gm[:B].reshape(shape1)),
-            cvar=Halfspace(h[:B].reshape(shape2), gc[:B].reshape(shape1)),
-            dr_cvar=Halfspace(h[:B].reshape(shape2),
-                              gd[:B].reshape(shape1)),
+            mean=Halfspace(hm.reshape(shape2), gm.reshape(shape1)),
+            cvar=Halfspace(h.reshape(shape2), gc.reshape(shape1)),
+            dr_cvar=Halfspace(h.reshape(shape2), gd.reshape(shape1)),
         )
 
     ego_pos_b = ego_pos[:, None, :]                            # broadcast obs

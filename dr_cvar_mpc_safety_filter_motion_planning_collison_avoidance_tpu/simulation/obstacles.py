@@ -1,7 +1,7 @@
 """Obstacle trajectory generation (nominal / Gaussian samples / Laplace
 realization).
 
-TPU-native counterpart of reference simulation/obstacles.py:7-197.  All
+Counterpart of reference simulation/obstacles.py:7-197.  All
 obstacles of a scenario are generated in one shot with stacked array
 shapes and counter-based `jax.random` keys, so generation jits, vmaps
 over Monte-Carlo runs, and shards over device meshes.

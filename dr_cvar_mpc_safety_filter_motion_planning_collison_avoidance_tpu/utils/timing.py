@@ -79,8 +79,8 @@ def trace(log_dir: str | None = None):
     """Optional `jax.profiler` trace of the enclosed block.
 
     The reference has only wall-clock timers (reference
-    utils/timing.py:8-90); this is the TPU-native deep-profiling hook:
-    pass a directory to capture an XLA/TPU trace viewable in
+    utils/timing.py:8-90); this is the deep-profiling hook: pass a
+    directory to capture an XLA device trace viewable in
     TensorBoard/Perfetto (`xprof`), pass None for a no-op so callers can
     wrap code unconditionally:
 

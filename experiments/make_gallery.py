@@ -1,7 +1,7 @@
 """Generate the published results gallery (VERDICT r3 missing #1).
 
 Runs all 4 scenarios x 2 presets through the CLI pipeline on the
-attached TPU and writes the reference's artifact tree:
+attached accelerator and writes the reference's artifact tree:
 
     results/Custom_Scenarios/{scenario}_results.png
     results/Custom_Scenarios/{scenario}_dr_cvar_halfspaces.png

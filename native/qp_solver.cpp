@@ -4,7 +4,7 @@
 // outsources to via CVXPY -- ECOS (interior point) and OSQP (ADMM),
 // reference environment.yml:31-33, core/risk_metrics.py:156 and
 // core/mpc_filter.py:151.  This engine's hot path runs the batched
-// XLA/Pallas solvers on TPU; this library is the host-side native
+// XLA/Pallas solvers on the GPU; this library is the host-side native
 // backend: a CVXPY-free verification oracle for tests and a fallback
 // solver where no accelerator is present.
 //

@@ -5,8 +5,8 @@ Launched by tests/test_distributed.py as
 Each process fakes one "host" of 4 CPU devices; jax.distributed wires
 them into one 8-device cluster with Gloo cross-host collectives.  This
 exercises the real multi-host code path (jax.distributed.initialize,
-process-boundary-aware mesh, cross-process collectives) that a TPU pod
-uses, minus only the ICI/DCN fabric itself.
+process-boundary-aware mesh, cross-process collectives) that a multi-host
+GPU cluster uses, minus only the NVLink/network fabric itself.
 """
 
 import os
@@ -36,7 +36,7 @@ def main():
     mesh = make_multihost_mesh()
     assert mesh.devices.shape == (nproc, 4)
     # Host boundaries: each data-row must be exactly one process's
-    # devices, so sample-axis collectives never cross DCN.
+    # devices, so sample-axis collectives never cross hosts.
     for i, row in enumerate(mesh.devices):
         assert all(d.process_index == i for d in row), (
             f"row {i} spans processes "
@@ -65,11 +65,11 @@ def main():
         ALPHA, DELTA, EPS, RR, RO,
         batch_axis_spec=P("data", "samples", None))
     # g_sp is data-sharded (not fully addressable here); gather it
-    # replicated before reading -- the DCN metric gather.
+    # replicated before reading -- the cross-host metric gather.
     g_sp = jax.jit(lambda x: x, out_shardings=NamedSharding(mesh, P()))(g_sp)
     np.testing.assert_allclose(np.asarray(g_sp), g_ref, rtol=2e-5,
                                atol=2e-5)
-    print(f"proc {pid}: sample-parallel over DCN mesh OK", flush=True)
+    print(f"proc {pid}: sample-parallel over multi-host mesh OK", flush=True)
 
     # 2) instance batch sharded over the FULL mesh (cross-host dp).
     sharding = NamedSharding(mesh, P(("data", "samples")))
@@ -93,7 +93,7 @@ def main():
     print(f"proc {pid}: cross-host data-parallel batch OK", flush=True)
 
     # 3) full pipeline batch over the data (host) axis, metric
-    #    aggregation pulled back replicated (the DCN gather).
+    #    aggregation pulled back replicated (the cross-host gather).
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.config import (
         Parameters, get_scenario_config)
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.models.pipeline import (

@@ -3,7 +3,7 @@
 These implement the reference's MATH CONTRACT (the convex programs of
 reference core/risk_metrics.py:84-265 and the MPC QP of
 core/mpc_filter.py:40-178) with generic scipy solvers -- a code path
-fully independent of both the reference's CVXPY build and the TPU
+fully independent of both the reference's CVXPY build and the
 engine's closed forms / IPM, so agreement is meaningful evidence.
 """
 

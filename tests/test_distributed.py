@@ -1,7 +1,7 @@
 """Multi-host path tests.
 
 Two layers:
-  * in-process: DCN-aware mesh layout helpers on the 8-device virtual
+  * in-process: host-aware mesh layout helpers on the 8-device virtual
     CPU mesh (host grouping emulated);
   * real 2-process fake cluster: spawns two `distributed_worker.py`
     processes (4 virtual CPU devices each) joined through

@@ -9,7 +9,7 @@ streams -> planner -> halfspaces -> MPC filter) on `head_on` and
 
     max |u_engine - u_oracle| < 1e-4
 
-in BOTH float64 and float32 (the TPU default).  The float32 bound is
+in BOTH float64 and float32 (the accelerator default).  The float32 bound is
 met by the active-set Newton polish in ops/qp_ipm_structured.py
 (_polish): without it the float32 IPM merit floor leaves deviations up
 to ~1e-2 on multi_obstacle.
@@ -92,7 +92,7 @@ def test_control_deviation_f64(e2e_runs, scenario, metric):
 @pytest.mark.parametrize("scenario", SCENARIOS)
 @pytest.mark.parametrize("metric", METRICS)
 def test_control_deviation_f32(e2e_runs, scenario, metric):
-    """The north-star bound at the TPU default precision."""
+    """The north-star bound at the accelerator's float32 precision."""
     runs, oracles = e2e_runs[scenario]
     res = runs[jnp.float32]
     mi = METRICS.index(metric)

@@ -1,5 +1,5 @@
 """Evaluation-layer tests: metrics, timing analysis, visualization,
-utils, and the Pallas kernel in interpreter mode."""
+utils, and the Pallas halfspace kernel in interpreter mode."""
 
 import os
 
@@ -156,18 +156,16 @@ def test_animation_smoke(tmp_path):
 
 
 def test_pallas_kernel_interpret_mode():
-    """Fused Pallas DR-CVaR kernel equals the XLA closed form
-    (interpreter mode on CPU; compiled path exercised on TPU)."""
+    """Fused Pallas kernel's DR-CVaR output equals the XLA closed form
+    (interpreter mode on CPU; the compiled Triton kernel is checked on
+    the card by chip_smoke.py)."""
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.halfspace import (
         dr_cvar_halfspace)
-    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.pallas_kernels import (
-        fused_drcvar_halfspace)
     rng = np.random.default_rng(2)
     B, N = 8, 50
     samples = jnp.asarray(rng.normal(size=(B, N, 2)), jnp.float32)
     ego = jnp.asarray(rng.normal(size=(B, 2)), jnp.float32)
-    h_k, g_k = fused_drcvar_halfspace(samples, ego, 0.2, 0.1, 0.15,
-                                      0.3, 0.3, interpret=True)
+    h_k, g_k = _kernel_drcvar(samples, ego, 0.2)
     ref = dr_cvar_halfspace(samples, ego, 0.2, 0.1, 0.15, 0.3, 0.3)
     np.testing.assert_allclose(np.asarray(h_k), np.asarray(ref.h),
                                atol=1e-6)
@@ -176,10 +174,20 @@ def test_pallas_kernel_interpret_mode():
                                atol=1e-5)
 
 
+def _kernel_drcvar(samples, ego, alpha, **launch):
+    """(h, g_drcvar) of the fused kernel in interpret mode."""
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.pallas_kernels import (
+        fused_metric_halfspaces)
+    _, _, h, _, gd = fused_metric_halfspaces(
+        samples, ego, alpha, 0.1, 0.15, 0.3, 0.3, interpret=True, **launch)
+    return h, gd
+
+
 def test_pallas_all_metrics_interpret_mode():
-    """Fused all-metrics Pallas kernel (the production TPU halfspace
+    """Fused all-metrics Pallas kernel (the production GPU halfspace
     path) equals the XLA closed forms for mean, CVaR AND DR-CVaR in one
-    pass (interpreter mode on CPU; compiled path exercised on TPU)."""
+    pass (interpreter mode on CPU; compiled path checked by
+    chip_smoke.py)."""
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.halfspace import (
         cvar_halfspace, dr_cvar_halfspace, mean_halfspace)
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.pallas_kernels import (
@@ -206,22 +214,19 @@ def test_pallas_all_metrics_interpret_mode():
 
 
 def test_environment_pallas_path_interpret(monkeypatch):
-    """compute_safe_halfspaces_for_trajectory(use_pallas=True) matches
+    """compute_safe_halfspaces_for_trajectory(use_kernel=True) matches
     the XLA path on the same inputs (kernel forced to interpret mode
     via monkeypatching, since tests run on CPU)."""
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.pallas_kernels as pk
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.simulation.environment as env_mod
 
-    orig = pk.fused_metric_halfspaces_planes
+    orig = pk.fused_metric_halfspaces
 
     def interp(*args, **kwargs):
         kwargs["interpret"] = True
         return orig(*args, **kwargs)
 
-    # The environment feeds the kernel SoA planes directly (round 4).
-    monkeypatch.setattr(env_mod, "fused_metric_halfspaces_planes", interp,
-                        raising=False)
-    monkeypatch.setattr(pk, "fused_metric_halfspaces_planes", interp)
+    monkeypatch.setattr(pk, "fused_metric_halfspaces", interp)
 
     env = env_mod.Environment(robot_radius=0.3, obstacle_radius=0.3,
                               horizon=6, dt=0.2, alpha=0.2, delta=0.1,
@@ -231,9 +236,9 @@ def test_environment_pallas_path_interpret(monkeypatch):
     x_ref = jnp.asarray(np.cumsum(rng.normal(size=(7, 4)), axis=0),
                         jnp.float32)
     hs_pl = env_mod.compute_safe_halfspaces_for_trajectory(
-        env, samples, x_ref, use_pallas=True)
+        env, samples, x_ref, use_kernel=True)
     hs_ref = env_mod.compute_safe_halfspaces_for_trajectory(
-        env, samples, x_ref, use_pallas=False)
+        env, samples, x_ref, use_kernel=False)
     for m in ("mean", "cvar", "dr_cvar"):
         np.testing.assert_allclose(
             np.asarray(hs_pl.by_metric(m).h),
@@ -281,14 +286,12 @@ def test_profiler_trace_hook(tmp_path):
 @pytest.mark.parametrize("case", ["ties", "constant", "outlier",
                                   "negative", "laplace", "alpha_mid"])
 def test_pallas_select_adversarial_data(case):
-    """The moment-seeded select (round-4 kernel) must stay EXACT on
+    """The moment-seeded select must stay EXACT on
     data its Gaussian round-1 pivots mis-bracket: heavy ties, constant
     rows, huge outliers (inflated sigma), all-negative quantiles, heavy
     tails, and mid-range alpha."""
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.halfspace import (
         dr_cvar_halfspace)
-    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.pallas_kernels import (
-        fused_drcvar_halfspace)
     rng = np.random.default_rng(7)
     B, N = 8, 64
     alpha = 0.5 if case == "alpha_mid" else 0.2
@@ -309,8 +312,7 @@ def test_pallas_select_adversarial_data(case):
         vals = rng.normal(size=(B, N, 2))
     samples = jnp.asarray(vals, jnp.float32)
     ego = jnp.asarray(rng.normal(size=(B, 2)), jnp.float32)
-    h_k, g_k = fused_drcvar_halfspace(samples, ego, alpha, 0.1, 0.15,
-                                      0.3, 0.3, interpret=True)
+    h_k, g_k = _kernel_drcvar(samples, ego, alpha)
     ref = dr_cvar_halfspace(samples, ego, alpha, 0.1, 0.15, 0.3, 0.3)
     np.testing.assert_allclose(np.asarray(g_k),
                                np.asarray(ref.g_tilde).astype(np.float32),
@@ -323,15 +325,12 @@ def test_pallas_select_large_n_3ary_path():
     the timing sweep's N=1500 end."""
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.halfspace import (
         dr_cvar_halfspace)
-    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.pallas_kernels import (
-        fused_drcvar_halfspace)
     rng = np.random.default_rng(17)
     samples = jnp.asarray(
         np.array([0.5, 0.0]) + 0.1 * rng.normal(size=(6, 1500, 2)),
         jnp.float32)
     ego = jnp.asarray(0.1 * rng.normal(size=(6, 2)), jnp.float32)
-    h_k, g_k = fused_drcvar_halfspace(samples, ego, 0.2, 0.1, 0.15,
-                                      0.3, 0.3, interpret=True)
+    h_k, g_k = _kernel_drcvar(samples, ego, 0.2)
     ref = dr_cvar_halfspace(samples, ego, 0.2, 0.1, 0.15, 0.3, 0.3)
     np.testing.assert_allclose(np.asarray(g_k),
                                np.asarray(ref.g_tilde).astype(np.float32),
@@ -340,38 +339,32 @@ def test_pallas_select_large_n_3ary_path():
 
 def test_pallas_kernel_shape_guards():
     """Packed-count overflow (n > 32767: a 15-bit dual field would reach
-    the int32 sign bit) and non-dividing row tiles must raise at trace
-    time, not corrupt results silently (round-4 review; cap lifted from
-    2047 in round 5 by N-scaled field widths)."""
+    the int32 sign bit) and a row count that is not a power of two (a
+    Triton block shape) must raise at trace time, not corrupt results
+    silently."""
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.pallas_kernels import (
-        fused_drcvar_halfspace_planes)
-    sx = jnp.zeros((8, 33024), jnp.float32)
-    sy = jnp.zeros((8, 33024), jnp.float32)
+        fused_metric_halfspaces)
     ego = jnp.zeros((8, 2), jnp.float32)
     with pytest.raises(ValueError, match="n_samples"):
-        fused_drcvar_halfspace_planes(sx, sy, ego, 32800, 0.2, 0.1, 0.15,
-                                      0.3, 0.3, tile_b=8)
-    with pytest.raises(ValueError, match="multiple of the row tile"):
-        fused_drcvar_halfspace_planes(sx[:, :1024], sy[:, :1024], ego,
-                                      1000, 0.2, 0.1, 0.15, 0.3, 0.3,
-                                      tile_b=256)
+        fused_metric_halfspaces(jnp.zeros((8, 32800, 2), jnp.float32), ego,
+                                0.2, 0.1, 0.15, 0.3, 0.3, interpret=True)
+    with pytest.raises(ValueError, match="power of two"):
+        fused_metric_halfspaces(jnp.zeros((8, 1000, 2), jnp.float32), ego,
+                                0.2, 0.1, 0.15, 0.3, 0.3, rows=3,
+                                interpret=True)
 
 
 def test_pallas_select_n4096_wide_field_path():
-    """N above the old 2047 packed-count cap must stay EXACT on the
-    widened (12-bit at N=4096) dual-packed count path instead of
-    cliffing onto the XLA closed form (round-4 verdict next #3)."""
+    """N=4096 (the widest row the production path sends to the kernel)
+    must stay EXACT on the widened 13-bit dual-packed count path."""
     from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.halfspace import (
         dr_cvar_halfspace)
-    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.pallas_kernels import (
-        fused_drcvar_halfspace)
     rng = np.random.default_rng(23)
     samples = jnp.asarray(
         np.array([0.5, 0.0]) + 0.1 * rng.normal(size=(4, 4096, 2)),
         jnp.float32)
     ego = jnp.asarray(0.1 * rng.normal(size=(4, 2)), jnp.float32)
-    h_k, g_k = fused_drcvar_halfspace(samples, ego, 0.2, 0.1, 0.15,
-                                      0.3, 0.3, interpret=True)
+    h_k, g_k = _kernel_drcvar(samples, ego, 0.2)
     ref = dr_cvar_halfspace(samples, ego, 0.2, 0.1, 0.15, 0.3, 0.3)
     np.testing.assert_allclose(np.asarray(g_k),
                                np.asarray(ref.g_tilde).astype(np.float32),
@@ -379,26 +372,28 @@ def test_pallas_select_n4096_wide_field_path():
 
 
 def test_environment_xla_fallback_above_kernel_n_limit(monkeypatch):
-    """N > 32767 on a (simulated) TPU backend must auto-route to the XLA
-    closed form instead of tripping the kernel's count-packing guard."""
+    """N above the kernel's row width on a (simulated) GPU backend must
+    auto-route to the XLA closed form instead of the kernel."""
     import jax
 
     import dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.simulation.environment as env_mod
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.pallas_kernels import (
+        KERNEL_MAX_N)
 
     x64_was = jax.config.jax_enable_x64
     try:
         jax.config.update("jax_enable_x64", False)
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
         env = env_mod.Environment(robot_radius=0.3, obstacle_radius=0.3,
                                   horizon=3, dt=0.2, alpha=0.2, delta=0.1,
                                   epsilon=0.15, dtype=jnp.float32)
         rng = np.random.default_rng(5)
-        samples = jnp.asarray(rng.normal(size=(1, 32800, 4, 2)),
+        samples = jnp.asarray(rng.normal(size=(1, KERNEL_MAX_N + 1, 4, 2)),
                               jnp.float32)
         x_ref = jnp.asarray(np.cumsum(rng.normal(size=(4, 4)), axis=0),
                             jnp.float32)
-        # Would raise (or emit an uncompilable pallas_call) if routed to
-        # the kernel; the N-gate sends it to XLA, which runs on CPU.
+        # Routed to the kernel, a compiled (non-interpret) Triton call
+        # would fail to lower on the CPU; the N-gate sends it to XLA.
         hs = env_mod.compute_safe_halfspaces_for_trajectory(
             env, samples, x_ref)
         assert np.isfinite(np.asarray(hs.dr_cvar.g_tilde)).all()

@@ -1,6 +1,6 @@
 """Golden tests: closed-form halfspace offsets vs independent LP oracles.
 
-The TPU engine replaces the reference's ECOS-solved CVaR / DR-CVaR
+The engine replaces the reference's ECOS-solved CVaR / DR-CVaR
 programs (reference core/risk_metrics.py:84-265) with closed forms; these
 tests prove the closed forms equal the programs' optima by solving the
 ORIGINAL programs with scipy.linprog (an independent solver and code

@@ -110,8 +110,10 @@ def test_bounds_trimming_quirk():
 
 
 def test_fallback_replays_shifted_last_u():
-    """Force non-convergence via max_iters=1 and verify the fallback
-    shifts the previous optimal sequence (reference core/mpc_filter.py:195-207)."""
+    """Force non-convergence (one IPM iteration and an unreachable
+    tolerance: the active-set polish alone can reach the optimum from
+    one iteration) and verify the fallback shifts the previous optimal
+    sequence (reference core/mpc_filter.py:195-207)."""
     prob, A, B, C, x0, x_ref, u_ref, hs_h, hs_g = _setup(seed=6)
     rng = np.random.default_rng(0)
     last_u = rng.normal(size=(H, 2))
@@ -119,7 +121,7 @@ def test_fallback_replays_shifted_last_u():
                             jnp.asarray(u_ref), jnp.asarray(hs_h),
                             jnp.asarray(hs_g),
                             last_optimal_u=jnp.asarray(last_u),
-                            has_last=True, max_iters=1)
+                            has_last=True, max_iters=1, tol=0.0)
     assert bool(res.used_fallback)
     expected = np.concatenate([last_u[1:], u_ref[H - 1:H]], axis=0)
     np.testing.assert_allclose(np.asarray(res.u_filtered), expected,
@@ -138,7 +140,7 @@ def test_fallback_without_history_uses_u_ref():
     u_ref = np.random.default_rng(1).normal(size=(H, 2))
     res = filter_trajectory(prob, jnp.asarray(x0), jnp.asarray(x_ref),
                             jnp.asarray(u_ref), jnp.asarray(hs_h),
-                            jnp.asarray(hs_g), max_iters=1)
+                            jnp.asarray(hs_g), max_iters=1, tol=0.0)
     assert bool(res.used_fallback)
     np.testing.assert_allclose(np.asarray(res.u_filtered), u_ref, atol=1e-12)
 

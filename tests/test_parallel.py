@@ -51,8 +51,8 @@ def test_sample_parallel_mesh_shapes(n_sp):
 
 
 def test_sample_parallel_data_sharded_batch():
-    """DCN-mesh form: instances sharded over 'data' (hosts) AND samples
-    over 'samples' (ICI) -- the multi-host layout of
+    """Multi-host mesh form: instances sharded over 'data' (hosts) AND
+    samples over 'samples' (devices of one host) -- the multi-host layout of
     parallel/distributed.py, emulated on the virtual mesh."""
     from jax.sharding import PartitionSpec as P
     mesh = make_mesh(n_data=2, n_samples=4)

@@ -121,7 +121,7 @@ def test_solve_qp_vmap_nasty_lane_exits_early():
 
 
 def test_solve_qp_float32():
-    """f32 path (TPU dtype) reaches ~1e-4 accuracy with looser tol."""
+    """f32 path (accelerator dtype) reaches ~1e-4 accuracy with looser tol."""
     P, q, G, h = _random_qp(7, 15, 30)
     z_ref, _ = _scipy_solve(P, q, G, h)
     sol = solve_qp(jnp.asarray(P, jnp.float32), jnp.asarray(q, jnp.float32),

@@ -99,7 +99,7 @@ def test_structured_float32():
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_linsolve_inv_matches_chol(seed):
-    """The MXU-friendly explicit-inverse Newton path ("inv") must agree
+    """The matmul-shaped explicit-inverse Newton path ("inv") must agree
     with the triangular-solve path ("chol") to solver accuracy."""
     data = _structured_instance(seed)
     args = [jnp.asarray(x) for x in data[:6]] + [data[6], data[7]]
@@ -131,3 +131,28 @@ def test_warm_start_same_optimum_fewer_iterations(seed):
                                rtol=1e-5, atol=1e-6)
     assert float(warm.obj) == pytest.approx(float(cold.obj), abs=1e-6)
     assert int(warm.iterations) < int(cold.iterations)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_polish_corrects_misclassified_active_set(seed):
+    """Started from an active set with rows classified wrongly (as a
+    float32 IPM merit floor can leave them, l/w near 1), the polish's
+    active-set corrections still land on the optimum."""
+    from dr_cvar_mpc_safety_filter_motion_planning_collison_avoidance_tpu.ops.qp_ipm_structured import (
+        _polish)
+    data = _structured_instance(seed)
+    P_uu, q_u, G_u, h1, A, b = [jnp.asarray(x) for x in data[:6]]
+    m2 = A.shape[0]
+    p_ss = jnp.full((m2,), data[6])
+    q_s = jnp.full((m2,), data[7])
+    sol = solve_mpc_qp(P_uu, q_u, G_u, h1, A, b, data[6], data[7])
+    l1, l2, l3 = sol.mults
+    w1, w2, w3 = h1 - G_u @ sol.u, b - A @ sol.u + sol.s, sol.s
+    # Swap l and w on two rows of each family: active rows read as
+    # inactive and inactive rows as active.
+    swap = lambda l, w: (l.at[:2].set(w[:2]), w.at[:2].set(l[:2]))
+    (l1, w1), (l2, w2), (l3, w3) = swap(l1, w1), swap(l2, w2), swap(l3, w3)
+    u_p = _polish(P_uu, q_u, G_u, h1, A, b, p_ss, q_s, 1e-10,
+                  sol.u, sol.s, l1, l2, l3, w1, w2, w3)[0]
+    np.testing.assert_allclose(np.asarray(u_p), np.asarray(sol.u),
+                               atol=1e-7)
